@@ -1,31 +1,28 @@
 """Scale-out demo: the three mesh axes of poulpy_tpu.parallel.
 
 The reference library is single-process (SURVEY.md §2.8); this example shows
-the TPU-native distribution layer on whatever devices are available — run
-with a virtual CPU mesh for a laptop demo:
+the distribution layer on whatever devices are available — the GPUs of one
+host, or a virtual CPU mesh for a laptop demo:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/scale_out.py
 
-Axes (parallel/multihost.py docstring has the DCN/ICI placement rules):
+Axes (parallel/multihost.py docstring has the host/NVLink placement rules):
   dp — ciphertext batch (embarrassingly parallel; the only axis that may
        cross hosts): demonstrated with a batch of NAND gate bootstraps.
   tp — CRT primes (one all_gather per inverse transform): demonstrated
        with the (dp, tp)-sharded external product.
-  sp — ring degree N (all_to_all per NTT stage, for N beyond one chip's
-       VMEM): demonstrated with the ring-sharded external product.
+  sp — ring degree N (all_to_all per NTT stage, for N beyond one
+       device's memory): demonstrated with the ring-sharded external
+       product.
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 import jax
-
-jax.config.update("jax_enable_x64", True)
-
 import numpy as np
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -43,6 +40,7 @@ from poulpy_tpu.parallel import (
     sharded_external_product_fn,
     sharded_gate_bootstrap_fn,
 )
+from poulpy_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main():
@@ -156,4 +154,5 @@ def main():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

@@ -1,7 +1,7 @@
 """Binary / gate-level FHE (poulpy-bin-fhe): CGGI blind rotation, gate
 bootstrapping, circuit bootstrapping, BDD arithmetic on packed integers.
 
-TPU-first structure: the blind-rotation loop over LWE coefficients is a
+Batched structure: the blind-rotation loop over LWE coefficients is a
 `lax.scan` over a stacked GGSW key tensor, and whole batches of ciphertexts
 ride the leading axes through one compiled scan — the throughput shape for
 the BASELINE gate-bootstraps/s metric.

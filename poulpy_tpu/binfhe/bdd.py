@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-import flax.struct as struct
 import jax.numpy as jnp
 import numpy as np
 
@@ -34,6 +33,7 @@ from poulpy_tpu.core.layouts import GLWECiphertext, GLWEPlaintext, glwe_size
 from poulpy_tpu.core.prepared import GGSWPrepared, ggsw_prepare
 from poulpy_tpu.hal import vec_znx
 from poulpy_tpu.hal.module import Module
+from poulpy_tpu.utils import struct
 
 # --------------------------------------------------------------------------
 # BDD representation and builders

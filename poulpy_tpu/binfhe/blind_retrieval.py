@@ -13,7 +13,7 @@ ciphertexts: slot i holds the CMux-combination of a full aligned block of
 exactly a binary carry-save counter.  For n inputs of which only
 ⌈log2 n⌉ + 1 fit in memory at once, this is a different capability class.
 
-TPU notes: each GLWE may carry leading batch axes (every underlying op
+Batching: each GLWE may carry leading batch axes (every underlying op
 broadcasts), so one ``add`` can stream a whole batch of independent
 retrievals.  The butterfly network batches all pairs of a stage into ONE
 external product along a stacked leading axis.

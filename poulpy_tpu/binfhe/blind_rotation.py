@@ -6,7 +6,7 @@ Standard path (algorithm.rs:370-443):
     for each LWE coeff a_i:  acc += (X^{a_i} − 1)·(BRK_i ⊡ acc)
     normalize once at the end.
 
-TPU-first realization: the loop is a `lax.scan` over the stacked prepared
+Batched realization: the loop is a `lax.scan` over the stacked prepared
 GGSW key tensor; rotation amounts are traced per batch element, so one
 compiled scan evaluates an entire batch of blind rotations (the
 gate-bootstraps/s axis).
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import functools
 
-import flax.struct as struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +29,7 @@ from poulpy_tpu.hal.module import Module
 from poulpy_tpu.hal.ntt import mont_mul
 from poulpy_tpu.hal.normalization import vec_znx_normalize
 from poulpy_tpu.hal.vec_znx import vec_znx_rotate
+from poulpy_tpu.utils import struct
 
 
 def _static(**kw):
@@ -61,7 +61,7 @@ class BlindRotationKeyPrepared:
 class BlindRotationKeyCompressed:
     """Seeded BRK: one GGSWCompressed stacked over the n_lwe coefficients
     (blind_rotation/layouts/key_compressed.rs + encryption/key_compressed.rs);
-    (rank+1)× smaller for transport, decompress + prepare on the chip."""
+    (rank+1)× smaller for transport, decompress + prepare on the device."""
 
     ggsw: object  # core.compressed.GGSWCompressed with batch (n_lwe,)
     dist: str = _static(default="binary_prob")
@@ -207,33 +207,12 @@ def blind_rotation_execute(
             [body[None], jnp.zeros((rank, size, n), jnp.int64)], axis=0
         )
 
-    t = module.tables
-    use_fused = _use_fused_br(module, brk, base2k, extra_bits=a.shape[-1])
-
     def step(acc, inputs):
         a_i, pmat_i = inputs
-        if use_fused:
-            if _use_mxu_br(module, brk, base2k):
-                from poulpy_tpu.backends.pallas_fused_mxu import (
-                    fused_mxu_glwe_product,
-                )
-
-                tmp = fused_mxu_glwe_product(
-                    module, acc, pmat_i, size, base2k, base2k
-                )
-            else:
-                from poulpy_tpu.backends.pallas_fused import (
-                    fused_glwe_product,
-                )
-
-                tmp = fused_glwe_product(
-                    module, acc, pmat_i, size, base2k, base2k
-                )
-        else:
-            a_dft = dft.dft_apply(module, acc)
-            res_dft = dft.vmp_apply(module, a_dft, pmat_i)
-            big = dft.idft_apply(module, res_dft)
-            tmp = dft.big_normalize(module, size, base2k, big, base2k)
+        a_dft = dft.dft_apply(module, acc)
+        res_dft = dft.vmp_apply(module, a_dft, pmat_i)
+        big = dft.idft_apply(module, res_dft)
+        tmp = dft.big_normalize(module, size, base2k, big, base2k)
         p = a_i[..., None, None] if batch else a_i
         upd = vec_znx_rotate(p, tmp) - tmp
         return acc + upd, None
@@ -241,51 +220,6 @@ def blind_rotation_execute(
     a_scan = jnp.moveaxis(a, -1, 0)                    # [n_lwe, ...batch]
     acc, _ = jax.lax.scan(step, acc0, (a_scan, brk.pmats))
     return vec_znx_normalize(base2k, acc)
-
-
-def _use_fused_br(module, brk, base2k, extra_bits=0):
-    """Fused-path gate for blind rotation: Pallas on, dsize 1, base2k small
-    enough that window sums fit i32 AND the unnormalized standard-path
-    accumulator (≤ n_lwe·2^base2k growth) stays under the 2^29 input bound."""
-    from poulpy_tpu import backends
-    from poulpy_tpu.backends.pallas_fused import fused_supported
-
-    if not (backends.use_fused() and brk.dsize == 1):
-        return False
-    psize = brk.pmats.shape[-3]
-    if not fused_supported(module, psize, base2k):
-        return False
-    return base2k + int(extra_bits + 2).bit_length() <= 29
-
-
-def _rot_mode(module, use_mxu: bool) -> int:
-    """Rotate placement in the fused VPU block kernel (POULPY_TPU_ROT_MODE):
-    0 = output-side Montgomery (the r4 kernel); 1 = input-side Shoup from a
-    stacked (plain, quotient) table; 2 = input-side Montgomery from the
-    single-plane table (DEFAULT — kk < mdim rows with no extra VMEM).
-
-    On-device A/B (_gate_ab_probe, 2026-08-21): mode 1 alone +7.1% but it
-    interacts negatively with steps=2 chaining (+9.6% alone, the stronger
-    lever) — the two-plane table doubles xp VMEM on top of steps'
-    doubling; mode 2 keeps the input-side row saving without the VMEM."""
-    import os
-
-    from poulpy_tpu.backends.pallas_ntt import lazy_ok
-
-    if use_mxu or not lazy_ok(module.basis.primes):
-        return 0
-    return int(os.environ.get("POULPY_TPU_ROT_MODE", "2"))
-
-
-def _use_mxu_br(module, brk, base2k):
-    """MXU-transform variant of the fused blind-rotation kernels."""
-    from poulpy_tpu import backends
-    from poulpy_tpu.backends.pallas_fused_mxu import fused_mxu_supported
-
-    psize = brk.pmats.shape[-3]
-    return backends.use_fused_mxu() and fused_mxu_supported(
-        module, psize, base2k
-    )
 
 
 def blind_rotation_dispatch(
@@ -311,6 +245,26 @@ def blind_rotation_dispatch(
     return blind_rotation_execute(module, lwe, lut, brk, res_k=res_k)
 
 
+def _ntt_of_x(p: int, n: int) -> np.ndarray:
+    """hal.ntt.ntt_forward of the monomial X for one prime, replicated
+    host-side in numpy (same psi table, same stage schedule), `[N]` in
+    standard form."""
+    from poulpy_tpu.hal.ntt import _host_tables
+    from poulpy_tpu.hal.primes import R
+
+    psi_t, _, _ = _host_tables((p,), n)
+    w_all = psi_t[0] * pow(R, -1, p) % p        # tables are Montgomery form
+    x = np.zeros(n, dtype=np.int64)
+    x[1] = 1
+    for s in range(n.bit_length() - 1):
+        m = 1 << s
+        xr = x.reshape(m, 2, n >> (s + 1))
+        lo, hi = xr[:, 0, :], xr[:, 1, :]
+        v = hi * w_all[m : 2 * m, None] % p
+        x = np.stack([(lo + v) % p, (lo - v) % p], axis=1).reshape(n)
+    return x
+
+
 @functools.lru_cache(maxsize=None)
 def _xpow_table(n: int, primes: tuple):
     """Montgomery NTT of X^j for every j in [0, 2N): `[2N, P, N]` int64
@@ -318,71 +272,23 @@ def _xpow_table(n: int, primes: tuple):
     blind_rotation/layouts/key.rs + utils.rs:6).
 
     Computed entirely host-side: the NTT is an evaluation-domain transform,
-    so NTT(X^j) = NTT(X)^{⊙j} (pointwise powers of the exact numpy NTT-of-X
-    replica, mxu_ntt4._np_hal_ntt_probe), and X^{N+j} = −X^j (negacyclic
-    wrap).  Host numpy keeps this lru cache trace-safe: it is usually first
-    populated while TRACING a jitted caller, and a cached jnp value built
-    there would be a leaked tracer, crashing the next differently-shaped
-    trace with UnexpectedTracerError (regression test
+    so NTT(X^j) = NTT(X)^{⊙j} (pointwise powers of `_ntt_of_x`), and
+    X^{N+j} = −X^j (negacyclic wrap).  Host numpy keeps this lru cache
+    trace-safe: it is usually first populated while TRACING a jitted caller,
+    and a cached jnp value built there would be a leaked tracer, crashing the
+    next differently-shaped trace with UnexpectedTracerError (regression test
     test_xpow_table_cache_no_tracer_leak)."""
-    from poulpy_tpu.backends.mxu_ntt4 import _np_hal_ntt_probe
     from poulpy_tpu.hal.primes import R
 
     P = len(primes)
     out = np.zeros((2 * n, P, n), dtype=np.int64)
     for pi, p in enumerate(primes):
-        base = _np_hal_ntt_probe(p, n)          # canonical NTT(X), [N]
+        base = _ntt_of_x(p, n)                  # canonical NTT(X), [N]
         row = np.full(n, R % p, dtype=np.int64)  # Montgomery(X^0)
         for j in range(n):
             out[j, pi] = row
             row = row * base % p                # < 2^60: exact in int64
         out[n:, pi] = (p - out[:n, pi]) % p     # X^{N+j} = −X^j
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _xpow_minus1_table(n: int, primes: tuple):
-    """Montgomery NTT(X^j − 1) for every j in [0, 2N): `[2N, P, N]` int64
-    NUMPY array (trace-safe, see _xpow_table).
-
-    The fused block-binary kernel folds the CGGI (X^{a_i} − 1) subtraction
-    into the x-power table so the rotate-and-subtract is one multiply.
-    NTT(1) is all-ones in the evaluation domain; Montgomery form of 1 is
-    R mod p, subtracted per prime."""
-    from poulpy_tpu.hal.primes import R
-
-    xpow = _xpow_table(n, primes)               # [2N, P, N] numpy
-    p_arr = np.array(primes, dtype=np.int64)[None, :, None]
-    one_m = np.array(
-        [R % p for p in primes], dtype=np.int64
-    )[None, :, None]
-    return (xpow - one_m) % p_arr
-
-
-@functools.lru_cache(maxsize=None)
-def _xpow_minus1_shoup_table(n: int, primes: tuple):
-    """PLAIN NTT(X^j − 1) stacked with its Harvey/Shoup quotients:
-    `[2N, 2, P, N]` int64 NUMPY array (trace-safe, see _xpow_table).
-
-    [j, 0] = (NTT(X)^j − 1) mod p, [j, 1] = floor(value·2^30 / p) — feeds
-    the fused block-step kernel's input-side Shoup rotate (pallas_fused
-    rot_shoup: 6 vector multiplies per product vs Montgomery's 11, applied
-    to the kk VMP input rows instead of the mdim output rows)."""
-    from poulpy_tpu.backends.mxu_ntt4 import _np_hal_ntt_probe
-
-    P = len(primes)
-    out = np.zeros((2 * n, 2, P, n), dtype=np.int64)
-    for pi, p in enumerate(primes):
-        base = _np_hal_ntt_probe(p, n)          # canonical NTT(X), [N]
-        vals = np.zeros((2 * n, n), dtype=np.int64)
-        row = np.ones(n, dtype=np.int64)
-        for j in range(n):
-            vals[j] = row
-            row = row * base % p                # < 2^60: exact in int64
-        vals[n:] = (p - vals[:n]) % p           # X^{N+j} = −X^j
-        w = (vals - 1) % p                      # − NTT(1) = all-ones, plain
-        out[:, 0, pi] = w
-        out[:, 1, pi] = (w << 30) // p          # w < 2^28: shift is exact
     return out
 
 
@@ -442,92 +348,9 @@ def blind_rotation_execute_block(
 
     xpow = _xpow_table(n, module.basis.primes)
     t = module.tables
-    psize = brk.pmats.shape[-3]
 
     a_blocks = jnp.moveaxis(a, -1, 0).reshape((nblocks, block_size) + batch)
     pm_blocks = brk.pmats.reshape((nblocks, block_size) + brk.pmats.shape[1:])
-
-    if _use_fused_br(module, brk, base2k):
-        from poulpy_tpu.backends.pallas_fused import pm_kernel_layout
-
-        # both fused kernels take NTT(X^a − 1) so the CGGI rotate-and-
-        # subtract is a single in-kernel multiply; with lazy primes the VPU
-        # kernel takes the (plain, quotient) Shoup table applied to the VMP
-        # input instead (rot_shoup — fewer rows AND fewer multiplies)
-        use_mxu = _use_mxu_br(module, brk, base2k)
-        rot_mode = _rot_mode(module, use_mxu)
-        if rot_mode == 1:
-            xpow = _xpow_minus1_shoup_table(n, module.basis.primes)
-        else:
-            xpow = _xpow_minus1_table(n, module.basis.primes)
-        if use_mxu:
-            from poulpy_tpu.backends.pallas_fused_mxu import (
-                _sigma_perm,
-                fused_mxu_br_block_step as br_step_fn,
-            )
-
-            # σ-permute prepared operands once (cancels against the σ-order
-            # forward/inverse transforms inside the kernel)
-            pi_sigma = jnp.asarray(_sigma_perm(module))
-            pm_blocks = pm_blocks[..., pi_sigma]
-            xpow = xpow[..., pi_sigma]
-        else:
-            from poulpy_tpu.backends.pallas_fused import (
-                fused_br_block_step as br_step_fn,
-            )
-
-        rmax = min(brk.pmats.shape[-6], size)
-        # pre-transpose every block's pmats into kernel layout once:
-        # [nblocks, P, block, KK, M, N]
-        pm_k = jnp.swapaxes(pm_kernel_layout(pm_blocks, rmax), 1, 2)
-        xpow32 = xpow.astype(jnp.int32)
-
-        # chain `steps` whole block steps per kernel launch (the normalized
-        # accumulator stays in VMEM between them — halves the per-step acc
-        # HBM round trip + i64↔i32 conversion + launch overhead).  The
-        # trailing nblocks % steps blocks run as single-step launches.
-        import os as _os
-
-        steps = 1 if use_mxu else max(
-            1, int(_os.environ.get("POULPY_TPU_BR_STEPS", "2"))
-        )
-        steps = min(steps, nblocks)
-
-        def run_span(acc, a_span, pm_span, st):
-            # a_span [g, st·block, ...batch]; pm_span [g, P, st·block, ...]
-            def step_fn(acc, inputs):
-                a_blk, pm_blk = inputs
-                apos = jnp.moveaxis(a_blk, 0, -1) & (2 * n - 1)
-                xp = jnp.take(xpow32, apos, axis=0)
-                kw = {} if use_mxu else {
-                    "rot_mode": rot_mode, "steps": st
-                }
-                return br_step_fn(
-                    module, acc, pm_blk, xp, size, base2k, **kw
-                ), None
-
-            acc, _ = jax.lax.scan(step_fn, acc, (a_span, pm_span))
-            return acc
-
-        main = (nblocks // steps) * steps
-        if steps > 1 and main:
-            a_main = a_blocks[:main].reshape(
-                (main // steps, steps * block_size) + a_blocks.shape[2:]
-            )
-            pm_main = pm_k[:main].reshape(
-                (main // steps, steps) + pm_k.shape[1:]
-            )
-            pm_main = jnp.swapaxes(pm_main, 1, 2).reshape(
-                (main // steps, pm_k.shape[1], steps * block_size)
-                + pm_k.shape[3:]
-            )
-            acc = run_span(acc0, a_main, pm_main, steps)
-        else:
-            acc = run_span(acc0, a_blocks[:main], pm_k[:main], 1)
-            main = nblocks if steps == 1 else main
-        if main < nblocks:
-            acc = run_span(acc, a_blocks[main:], pm_k[main:], 1)
-        return acc
 
     def block_step(acc, inputs):
         a_blk, pm_blk = inputs
@@ -568,7 +391,7 @@ def blind_rotation_execute_extended(
     algorithm.rs:121-273): the LUT spans `extension_factor` degree-N
     polynomials (effective domain N·ext), held as a stacked accumulator axis.
 
-    TPU-first uniform rule replacing the reference's data-dependent
+    A uniform rule replacing the reference's data-dependent
     branches: for a rotation amount with hi/lo split (q = hi·ext + lo in
     Z_{2N·ext}), output part i sources part (i − lo) mod ext multiplied by
     X^{hi + (i < lo)} — realized as a batched gather over the part axis plus

@@ -46,8 +46,8 @@ class GateParams:
     k_ksk: int = 51       # GLWE→LWE switching key precision
     dnum_ksk: int = 2
     nprimes: int = 2
-    prime_bits: int = 28  # < 2^28 primes: Pallas lazy-reduction fast path;
-                          # 2 primes (56 bits) still cover the exact range
+    prime_bits: int = 28  # 2 primes below 2^28 (56 bits) cover the exact
+                          # range
     block_size: int = 1   # > 1 selects the block-binary CGGI path
 
 

@@ -9,12 +9,12 @@ mod-switch lands mid-window.
 
 from __future__ import annotations
 
-import flax.struct as struct
 import jax.numpy as jnp
 import numpy as np
 
 from poulpy_tpu.hal.normalization import vec_znx_normalize
 from poulpy_tpu.hal.vec_znx import vec_znx_rotate, vec_znx_switch_ring
+from poulpy_tpu.utils import struct
 
 
 @struct.dataclass

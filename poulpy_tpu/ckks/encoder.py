@@ -3,8 +3,8 @@
 Maps m = N/2 complex slots onto a real negacyclic polynomial through the
 canonical embedding restricted to the Galois-generator (5^k) orbit of
 primitive 2N-th roots of unity; conjugate symmetry makes the coefficients
-real.  Implemented host-side with numpy f64 FFTs (TPUs have no f64; the
-encoder runs at data ingress/egress only — the reference likewise treats it
+real.  Implemented host-side with numpy f64 FFTs (the device path is
+integer-only; the encoder runs at data ingress/egress only — the reference likewise treats it
 as a host-side float transform).
 
 Slot ordering CONTRACT (pinned by tests/test_ckks.py::

@@ -2,9 +2,8 @@
 
 from __future__ import annotations
 
-import flax.struct as struct
-
 from poulpy_tpu.core.layouts import GLWECiphertext, GLWEPlaintext
+from poulpy_tpu.utils import struct
 
 
 def _static(**kw):

@@ -212,7 +212,7 @@ def _truncate_to_eff(data, base2k: int, eff_k: int):
     cts and short-k cts decoded garbage)."""
     size = -(-eff_k // base2k)
     # eff_k beyond the stored limbs would make the slice a no-op and the
-    # .at[size-1] mask clamp onto the WRONG limb — fail loudly (ADVICE r4)
+    # .at[size-1] mask clamp onto the WRONG limb — fail loudly
     assert size <= data.shape[-2], (
         f"effective_k={eff_k} needs {size} limbs, ct stores {data.shape[-2]}"
     )
@@ -289,44 +289,6 @@ def mul(
     wide = dft.needs_wide(bits)  # NTT120-twin exit for base2k ≳ 26 params
     if wide:
         assert bits + 1 < module.basis.modulus.bit_length()
-
-    if wide and rank == 1:
-        # wide fused fast path (backends/pallas_wide.py): tensor kernel
-        # (NTT both cts → limb conv → Garner-128 → {offset-normalized quad
-        # digits, offset-normalized linear terms}) chained into the wide
-        # relinearize kernel (VMP → Garner-128 → + lin per column →
-        # normalize) — bit-exact vs the jnp wide data flow below
-        from poulpy_tpu import backends
-
-        key1 = tensor_key.keys[(0, 0)]
-        if backends.use_fused() and key1.base2k == base2k:
-            from poulpy_tpu.backends.pallas_wide import (
-                fused_glwe_product_wide,
-                fused_tensor_product_wide,
-                fused_wide_supported,
-                tensor_wide_supported,
-            )
-
-            psize = key1.pmat.shape[3]
-            if (fused_wide_supported(module, psize, base2k, key1.base2k)
-                    and tensor_wide_supported(
-                        module, conv_size, key1.base2k, base2k)
-                    and 2 * min(ga.size, gb.size) <= 16):
-                d, lin_n = fused_tensor_product_wide(
-                    module, ga.data, gb.data, conv_size,
-                    key1.dnum * key1.dsize, psize, key1.base2k, base2k,
-                    offset=off_bits - base2k,
-                )
-                data = fused_glwe_product_wide(
-                    module, d[..., None, :, :], key1.pmat, res_size,
-                    base2k, key1.base2k, small=lin_n, dsize=key1.dsize,
-                )
-                glwe = GLWECiphertext(data=data, base2k=base2k, k=res_k)
-                return CKKSCiphertext(
-                    glwe=glwe,
-                    meta=CKKSMeta(log_delta=res_delta,
-                                  log_budget=res_budget),
-                )
 
     norm = dft.big_normalize_wide if wide else dft.big_normalize
     lin, quad = glwe_tensor_product_big(module, ga, gb, conv_size, wide=wide)

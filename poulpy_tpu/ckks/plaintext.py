@@ -17,7 +17,6 @@ the existing convolution / scalar paths.
 
 from __future__ import annotations
 
-import flax.struct as struct
 import numpy as np
 
 import jax.numpy as jnp
@@ -26,6 +25,7 @@ from poulpy_tpu.ckks.layouts import CKKSCiphertext, CKKSMeta, CKKSPlaintext
 from poulpy_tpu.core.layouts import GLWEPlaintext, glwe_size
 from poulpy_tpu.hal import vec_znx
 from poulpy_tpu.hal.module import Module
+from poulpy_tpu.utils import struct
 
 
 def _static(**kw):

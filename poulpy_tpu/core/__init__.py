@@ -1,8 +1,8 @@
 """Backend-agnostic RLWE core: LWE/GLWE/GGLWE/GGSW over the torus.
 
-Functional TPU equivalent of poulpy-core: ciphertext layouts are pytree
+Functional JAX equivalent of poulpy-core: ciphertext layouts are pytree
 dataclasses wrapping limb tensors, operations are pure functions over them,
-and every operation vmaps over leading batch axes (the TPU throughput axis
+and every operation vmaps over leading batch axes (the throughput axis
 replacing the reference's one-ciphertext-at-a-time scalar loops).
 """
 

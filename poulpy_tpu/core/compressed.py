@@ -8,7 +8,6 @@ material size for transport/storage.
 
 from __future__ import annotations
 
-import flax.struct as struct
 import jax.numpy as jnp
 
 from poulpy_tpu.core.encryption import NoiseInfos, encrypt_sk_internal
@@ -16,6 +15,7 @@ from poulpy_tpu.core.layouts import GLWECiphertext, glwe_size
 from poulpy_tpu.core.prepared import GLWESecretPrepared
 from poulpy_tpu.hal.module import Module
 from poulpy_tpu.hal.source import Source
+from poulpy_tpu.utils import struct
 
 
 def _static(**kw):

@@ -7,7 +7,7 @@ glwe_switching_key.rs, glwe_automorphism_key.rs, glwe_tensor_key.rs).
 Randomness is drawn host-side from the deterministic ChaCha8 `Source`
 (whole tensors at once, including batch axes) and the arithmetic runs on
 device.  `batch_shape` broadcasts one secret across many plaintexts — the
-TPU-native batched-encryption path.
+batched-encryption path.
 """
 
 from __future__ import annotations
@@ -364,7 +364,8 @@ def lwe_encrypt_sk(
     batch = pt.shape[:-2]
     a = jnp.asarray(source_xa.uniform_digits(base2k, batch + (size, n_lwe)))
     # body = -Σ a_j s_j + m + e, carried per limb then normalized
-    # elementwise mul + reduce (TPU has no s64 dot_general)
+    # elementwise mul + reduce: an exact integer dot product, no float
+    # matrix unit involved
     body = -(a * jnp.asarray(sk_lwe)).sum(axis=-1)[..., None]
     body = vec_znx_sub(body, -pt[..., :, :], res_size=size)
     noise = NoiseInfos(k=k, sigma=sigma, bound=bound)

@@ -56,54 +56,6 @@ def glwe_external_product(
     wide = dft.needs_wide(dft.product_bits(
         ggsw.base2k, ggsw.base2k, module.log_n, ggsw.dnum * (ggsw.rank + 1)
     ))
-    from poulpy_tpu import backends
-
-    if backends.use_fused() and not wide:
-        from poulpy_tpu.backends.pallas_fused import (
-            fused_glwe_product,
-            fused_supported,
-        )
-
-        if fused_supported(module, pmat.shape[3], res_base2k):
-            from poulpy_tpu.backends.mxu_ntt import MXU_MIN_N, use_mxu
-            from poulpy_tpu.backends.pallas_fused_mxu import (
-                fused_mxu_glwe_product,
-                fused_mxu_supported,
-            )
-
-            if (dsize == 1 and backends.use_fused_mxu()
-                    and fused_mxu_supported(
-                        module, pmat.shape[3], res_base2k)):
-                res = fused_mxu_glwe_product(
-                    module, a.data, pmat, res_size, res_base2k,
-                    ggsw.base2k,
-                )
-            elif dsize == 1 and use_mxu() and module.n >= MXU_MIN_N:
-                from poulpy_tpu.backends.mxu_product import mxu_glwe_product
-
-                res = mxu_glwe_product(
-                    module, a.data, pmat, res_size, res_base2k,
-                    ggsw.base2k, in_bits=min(29, ggsw.base2k + 6),
-                )
-            else:
-                res = fused_glwe_product(
-                    module, a.data, pmat, res_size, res_base2k, ggsw.base2k,
-                    dsize=dsize,
-                )
-            return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
-    if wide and backends.use_fused():
-        from poulpy_tpu.backends.pallas_wide import (
-            fused_glwe_product_wide,
-            fused_wide_supported,
-        )
-
-        if fused_wide_supported(module, pmat.shape[3], res_base2k,
-                                ggsw.base2k):
-            res = fused_glwe_product_wide(
-                module, a.data, pmat, res_size, res_base2k, ggsw.base2k,
-                dsize=dsize,
-            )
-            return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
     if dsize == 1:
         a_dft = dft.dft_apply(module, a.data)
         res_dft = dft.vmp_apply(module, a_dft, pmat)

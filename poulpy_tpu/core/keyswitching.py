@@ -86,85 +86,6 @@ def glwe_keyswitch(
         key.base2k, key.base2k, module.log_n, key.dnum * max(1, a.rank)
     )
     wide = dft.needs_wide(bits)
-    if not wide:
-        from poulpy_tpu import backends
-
-        if backends.use_fused():
-            from poulpy_tpu.backends.pallas_fused import (
-                fused_glwe_product,
-                fused_supported,
-            )
-
-            if fused_supported(module, key.pmat.shape[3], res_base2k):
-                from poulpy_tpu.backends.mxu_ntt import MXU_MIN_N, use_mxu
-                from poulpy_tpu.backends.pallas_fused_mxu import (
-                    fused_mxu_glwe_product,
-                    fused_mxu_supported,
-                )
-
-                if (key.dsize == 1 and backends.use_fused_mxu()
-                        and fused_mxu_supported(
-                            module, key.pmat.shape[3], res_base2k)):
-                    res = fused_mxu_glwe_product(
-                        module,
-                        a.data[..., 1:, :, :],
-                        key.pmat,
-                        res_size,
-                        res_base2k,
-                        key.base2k,
-                        small=a.data[..., 0, :, :],
-                    )
-                elif key.dsize == 1 and use_mxu() and module.n >= MXU_MIN_N:
-                    from poulpy_tpu.backends.mxu_product import mxu_glwe_product
-
-                    res = mxu_glwe_product(
-                        module,
-                        a.data[..., 1:, :, :],
-                        key.pmat,
-                        res_size,
-                        res_base2k,
-                        key.base2k,
-                        small=a.data[..., 0, :, :],
-                        in_bits=min(29, key.base2k + 6),
-                    )
-                else:
-                    res = fused_glwe_product(
-                        module,
-                        a.data[..., 1:, :, :],
-                        key.pmat,
-                        res_size,
-                        res_base2k,
-                        key.base2k,
-                        small=a.data[..., 0, :, :],
-                        dsize=key.dsize,
-                    )
-                return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
-
-    if wide:
-        from poulpy_tpu import backends
-
-        if backends.use_fused():
-            from poulpy_tpu.backends.pallas_wide import (
-                fused_glwe_product_wide,
-                fused_wide_supported,
-            )
-
-            psize = key.pmat.shape[3]
-            if fused_wide_supported(module, psize, res_base2k, key.base2k):
-                import jax.numpy as jnp
-
-                co = key.pmat.shape[2]
-                upto = min(a.data.shape[-2], psize)
-                body = a.data[..., 0, :upto, :]
-                small = jnp.zeros(
-                    body.shape[:-2] + (co, upto, module.n), body.dtype
-                ).at[..., 0, :, :].set(body)
-                res = fused_glwe_product_wide(
-                    module, a.data[..., 1:, :, :], key.pmat, res_size,
-                    res_base2k, key.base2k, small=small, dsize=key.dsize,
-                )
-                return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
-
     a_dft = dft.dft_apply(module, a.data[..., 1:, :, :])
     res_dft = gglwe_product_dft(module, a_dft, key)
     if wide:

@@ -1,6 +1,6 @@
 """Ciphertext / key layouts (poulpy-core/src/layouts/).
 
-All layouts are flax.struct pytrees: array leaves carry the limb data (and
+All layouts are pytree dataclasses (utils/struct.py): array leaves carry the limb data (and
 batch over leading axes), static fields carry the parameter metadata the
 reference encodes in its `*Infos` traits (GLWELayout, GGLWELayout, …,
 poulpy-core/src/layouts/glwe.rs:36, gglwe.rs:37, ggsw.rs:38).
@@ -20,8 +20,9 @@ Prepared (DFT-domain) counterparts live in core/prepared.py.
 
 from __future__ import annotations
 
-import flax.struct as struct
 import jax.numpy as jnp
+
+from poulpy_tpu.utils import struct
 
 
 def _static(**kw):

@@ -225,44 +225,6 @@ def glwe_tensor_relinearize(
         assert max(bits_conv, bits_ks) + 1 < module.basis.modulus.bit_length()
     res_size = glwe_size(res_base2k, res_k)
 
-    if not wide and rank == 1:
-        # rank-1 fast path: ONE quad term → fused tensor-product kernel
-        # (NTT both cts → limb conv → iNTT → Garner → {quad digits, 64-bit
-        # linear terms}) chained into the fused relinearize kernel
-        # (VMP → iNTT → + linear terms per column → normalize)
-        from poulpy_tpu import backends
-
-        key1 = tensor_key.keys[(0, 0)]
-        if backends.use_fused() and key1.base2k == base2k:
-            from poulpy_tpu.backends.pallas_fused import (
-                fused_glwe_product,
-                fused_supported,
-                fused_tensor_product,
-                tensor_supported,
-            )
-
-            if fused_supported(module, key1.pmat.shape[3], res_base2k):
-                if (tensor_supported(module, conv_size, base2k)
-                        and 2 * min(a.size, b.size) <= 16):
-                    d, lin64 = fused_tensor_product(
-                        module, a.data, b.data, conv_size,
-                        key1.dnum * key1.dsize, key1.base2k, base2k,
-                    )
-                else:
-                    lin, quad = glwe_tensor_product_big(
-                        module, a, b, conv_size
-                    )
-                    d = dft.big_normalize(
-                        module, key1.dnum * key1.dsize, key1.base2k,
-                        quad[(0, 0)], base2k,
-                    )
-                    lin64 = jnp.stack(lin, axis=-3)
-                data = fused_glwe_product(
-                    module, d[..., None, :, :], key1.pmat, res_size,
-                    res_base2k, base2k, dsize=key1.dsize, small64=lin64,
-                )
-                return GLWECiphertext(data=data, base2k=res_base2k, k=res_k)
-
     # Normalize the quadratic terms and keyswitch them through the tensor key
     lin, quad = glwe_tensor_product_big(module, a, b, conv_size, wide=wide)
     acc = None

@@ -11,12 +11,12 @@ pointwise products and contractions:
 
 from __future__ import annotations
 
-import flax.struct as struct
 import jax.numpy as jnp
 
 from poulpy_tpu.core.layouts import GGLWECiphertext, GGSWCiphertext, GLWESecret
 from poulpy_tpu.hal import dft
 from poulpy_tpu.hal.module import Module
+from poulpy_tpu.utils import struct
 
 
 def _static(**kw):

@@ -1,8 +1,8 @@
 """HAL-equivalent kernel layer: limb tensors, modular NTT basis, znx kernels.
 
 The reference's hardware abstraction layer (poulpy-hal) exposes ~120
-per-operation traits over opaque backends.  The TPU-native equivalent is a
-flat functional surface over `jax.numpy` arrays:
+per-operation traits over opaque backends.  The equivalent here is a flat
+functional surface over `jax.numpy` arrays:
 
   * polynomials ("znx") are arrays whose last axis is the ring degree N,
   * limb vectors ("vec_znx", reference poulpy-hal/src/layouts/vec_znx.rs:35)
@@ -15,5 +15,5 @@ flat functional surface over `jax.numpy` arrays:
   * prepared operands (svp/vmp) are Montgomery-domain residue arrays.
 
 Everything is shape-polymorphic in the leading axes, so batching is plain
-broadcasting / `jax.vmap` — the TPU throughput axis.
+broadcasting / `jax.vmap` — the throughput axis.
 """

@@ -1,6 +1,6 @@
 """DFT-domain operations: dft/idft, SVP, VMP, bivariate convolution, big ops.
 
-The TPU-native equivalents of the reference kernels in
+The equivalents of the reference kernels in
 poulpy-cpu-ref/src/reference/fft64/{vec_znx_dft.rs, svp.rs, vmp.rs,
 vec_znx_big.rs, convolution.rs} (and their ntt120/ exact twins), on the
 CRT-NTT domain of `hal.ntt`.
@@ -14,8 +14,8 @@ Shape conventions (leading axes broadcast for batching):
 
 The reference's reim4 block-interleaved VmpPMat layout
 (poulpy-hal/src/layouts/vmp_pmat.rs:25-33) is an AVX-register artifact and is
-deliberately *not* reproduced: on TPU the natural `[rows, …, N]` layout lets
-XLA tile the contraction directly (SURVEY.md §7 design mapping).
+deliberately *not* reproduced: the natural `[rows, …, N]` layout lets XLA
+tile the contraction directly (SURVEY.md §7 design mapping).
 """
 
 from __future__ import annotations
@@ -34,26 +34,6 @@ from poulpy_tpu.hal.ntt import (
     to_residues,
 )
 from poulpy_tpu.hal.znx import znx_automorphism
-
-
-def _ntt_fwd(t, r):
-    from poulpy_tpu import backends
-
-    if backends.use_pallas():
-        from poulpy_tpu.backends.pallas_ntt import pallas_ntt_forward
-
-        return pallas_ntt_forward(t, r)
-    return ntt_forward(t, r)
-
-
-def _ntt_inv(t, r):
-    from poulpy_tpu import backends
-
-    if backends.use_pallas():
-        from poulpy_tpu.backends.pallas_ntt import pallas_ntt_inverse
-
-        return pallas_ntt_inverse(t, r)
-    return ntt_inverse(t, r)
 
 
 # --------------------------------------------------------------------------
@@ -83,7 +63,7 @@ def dft_apply(
         for j in range(min(res_size, steps))
         if offset + j * step < a_size
     ]
-    r = _ntt_fwd(t, to_residues(t, a[..., idx, :]))
+    r = ntt_forward(t, to_residues(t, a[..., idx, :]))
     if len(idx) < res_size:
         pads = [(0, 0)] * r.ndim
         pads[-3] = (0, res_size - len(idx))
@@ -99,7 +79,7 @@ def idft_apply(module: Module, a_dft):
     convolution result as wrapping int64 (the FFT64-family ScalarBig).
     """
     t = module.tables
-    return garner_lift(t, _ntt_inv(t, a_dft))
+    return garner_lift(t, ntt_inverse(t, a_dft))
 
 
 def dft_copy(a_dft, step: int = 1, offset: int = 0, res_size: int | None = None):
@@ -167,7 +147,7 @@ def svp_prepare(module: Module, s):
     """Scalar poly `[..., N]` → Montgomery NTT form `[..., P, N]`
     (SvpPrepare, reference/fft64/svp.rs)."""
     t = module.tables
-    return to_mont(t, _ntt_fwd(t, to_residues(t, s)))
+    return to_mont(t, ntt_forward(t, to_residues(t, s)))
 
 
 def svp_apply(module: Module, a_dft, s_ppol):
@@ -190,7 +170,7 @@ def vmp_prepare(module: Module, mat):
     pmat (vmp_prepare, reference/fft64/vmp.rs:52-97, without the reim4
     shuffle — see module docstring)."""
     t = module.tables
-    return to_mont(t, _ntt_fwd(t, to_residues(t, mat)))
+    return to_mont(t, ntt_forward(t, to_residues(t, mat)))
 
 
 def vmp_apply(
@@ -210,17 +190,11 @@ def vmp_apply(
     rows·cols_in·p < 2^40) with a single final reduction.
     """
     t = module.tables
-    from poulpy_tpu import backends
-
     rows, cols_in, cols_out, psize = pmat.shape[:4]
     a_size = a_dft.shape[-3]
     assert a_dft.shape[-4] == cols_in
     if res_size is None:
         res_size = psize
-    if backends.use_pallas():
-        from poulpy_tpu.backends.pallas_vmp import pallas_vmp_apply
-
-        return pallas_vmp_apply(module, a_dft, pmat, limb_offset, res_size)
     rmax = min(rows, a_size)
     out_cols = max(0, min(psize - limb_offset, res_size))
     if out_cols == 0 or rmax == 0:
@@ -254,13 +228,13 @@ def cnv_prepare_left(module: Module, a):
     """Left operand: standard-form NTT of each limb
     (CnvPVecL, reference/fft64/convolution.rs)."""
     t = module.tables
-    return _ntt_fwd(t, to_residues(t, a))
+    return ntt_forward(t, to_residues(t, a))
 
 
 def cnv_prepare_right(module: Module, b):
     """Right operand: Montgomery-form NTT of each limb (CnvPVecR)."""
     t = module.tables
-    return to_mont(t, _ntt_fwd(t, to_residues(t, b)))
+    return to_mont(t, ntt_forward(t, to_residues(t, b)))
 
 
 def cnv_apply(module: Module, a_prep, b_prep, res_size: int):
@@ -357,7 +331,7 @@ def idft_apply_wide(module: Module, a_dft):
     from poulpy_tpu.hal.wide import garner_lift_wide
 
     t = module.tables
-    return garner_lift_wide(t, _ntt_inv(t, a_dft))
+    return garner_lift_wide(t, ntt_inverse(t, a_dft))
 
 
 def big_normalize_wide(

@@ -28,10 +28,9 @@ class Module:
     def __init__(self, n: int, nprimes: int = 4, prime_bits: int = 30):
         """`prime_bits` bounds the basis primes below 2^prime_bits.
 
-        30 (default) maximizes bits-per-prime; 28 trades ~7% modulus bits
-        for the Pallas kernels' lazy-reduction fast path (values carried in
-        [0, 2p) ⊂ [0, 2^29), one conditional subtract per butterfly —
-        backends/pallas_ntt.py).  Validity asserts adapt automatically via
+        30 (default) maximizes bits-per-prime; 28 leaves two bits of
+        headroom per residue (values in [0, 2p) ⊂ [0, 2^29)) for lazy
+        reduction.  Validity asserts adapt automatically via
         `basis.modulus`.
         """
         assert n & (n - 1) == 0 and 4 <= n <= (1 << LOG_N_MAX)

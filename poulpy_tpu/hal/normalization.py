@@ -13,7 +13,7 @@ Normalization rewrites every limb into the balanced digit range
 
 The general conversion routine (`vec_znx_normalize_full`, covering the
 reference's vec_znx_normalize / vec_znx_big_normalize with base change,
-resize and power-of-two offset) is implemented TPU-first as *bit-window
+resize and power-of-two offset) is implemented data-parallel as *bit-window
 telescoping* rather than a port of the reference's sequential
 digit-streaming loop (normalize.rs:147-400): every (input limb, output limb)
 pair contributes one exact signed bit-window, extracted with two shifts, and

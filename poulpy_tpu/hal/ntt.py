@@ -1,16 +1,17 @@
 """Exact negacyclic NTT over a CRT prime basis + Montgomery arithmetic.
 
-This is the TPU-native DFT domain replacing both reference families:
+This is the single DFT domain replacing both reference families:
   * FFT64's `reim` f64 FFT (poulpy-cpu-ref/src/reference/fft64/reim/fft_ref.rs:25-43)
-    — not portable to TPU (no f64 vector hardware), and
+    — float rounding would make device results depend on summation order,
+    and
   * NTT120's 4×~30-bit-prime CRT NTT (poulpy-cpu-ref/src/reference/ntt120/ntt.rs:558,617)
     — same mathematical idea, but re-derived here in Montgomery form with
-    R = 2^30 (i32-digit friendly) rather than the reference's Q120 layout.
+    R = 2^30 rather than the reference's Q120 layout.
 
 All kernels are pure `jnp` int64 and shape-polymorphic: residue tensors are
-`[..., P, N]` with P = number of primes, N = ring degree.  XLA lowers int64
-to i32 pairs on TPU; the Pallas backend replaces the hot loops with native
-i32 kernels (see poulpy_tpu/backends/).
+`[..., P, N]` with P = number of primes, N = ring degree.  XLA compiles them
+for the CPU (tests) and the GPU (the device path) alike; both are exact, so
+their results are bit-identical.
 
 Values in the NTT domain are kept in *standard* residue form `[0, p)`;
 prepared operands (twiddles, SVP/VMP matrices) are stored in *Montgomery*
@@ -37,8 +38,7 @@ I64 = jnp.int64
 def mont_mul(a, b_mont, p, qinv):
     """REDC_{R=2^30}(a · b_mont) = a·b mod p, for 0 ≤ a,b < p < 2^30.
 
-    t + m·p < 2^60 + 2^60 stays in signed int64; R = 2^30 keeps every
-    intermediate 30-bit-digit-decomposable for the i32 Pallas kernels.
+    t + m·p < 2^60 + 2^60 stays in signed int64.
     Accepts int32 or int64 operands; result has the dtype of `a`.
     """
     dt = a.dtype if hasattr(a, "dtype") else jnp.int64
@@ -83,7 +83,7 @@ def fold_mod(acc, p, qinv, r2):
 def reduce_i64(x, p, qinv, r2, t40):
     """Any signed int64 → residue in [0, p), division-free.
 
-    i64 `%` is catastrophically slow on TPU (emulated long division).
+    Avoids int64 `%` (a long-division sequence on every backend).
     Two-stage fold instead: (1) x = x_hi·2^40 + x_lo with x_lo the unsigned
     low 40 bits folds to |y| < 2^55; (2) offset by the p-multiple p·2^29 to
     make it non-negative, one REDC (→ x·R^{-1} mod p, < 2^31), three

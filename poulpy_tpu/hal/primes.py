@@ -3,10 +3,11 @@
 The reference implements two exact-or-deterministic DFT families: a f64
 negacyclic FFT (FFT64, poulpy-cpu-ref/src/reference/fft64/) and a CRT-NTT
 over four ~30-bit primes (NTT120, poulpy-cpu-ref/src/reference/ntt120/primes.rs).
-TPUs have no f64 vector units, so this library uses a single exact CRT-NTT
-basis as its only DFT domain: `nprimes` primes `p ≡ 1 (mod 2·N_max)`,
-each `p < 2^30` so that Montgomery multiplication with R = 2^32 stays inside
-signed-int64 intermediate range (t + m·p < 2^60 + 2^62 < 2^63).
+This library uses a single exact CRT-NTT basis as its only DFT domain, so
+device results are exact integers independent of summation order: `nprimes`
+primes `p ≡ 1 (mod 2·N_max)`, each `p < 2^30` so that Montgomery
+multiplication with R = 2^30 stays inside signed-int64 intermediate range
+(t + m·p < 2^60 + 2^60 < 2^63).
 
 Because outputs are only compared at the *normalized limb* boundary
 (poulpy-hal/src/test_suite/vmp.rs:21-110 compares normalized outputs across
@@ -29,9 +30,8 @@ import numpy as np
 LOG_N_MAX = 16
 PSI_ORDER = 1 << (LOG_N_MAX + 1)
 
-# Montgomery radix R = 2^30: chosen so every intermediate of a REDC fits in
-# 30-bit-digit i32 arithmetic (the Pallas kernels) while the jnp int64 path
-# uses the same prepared-operand format (t + m·p < 2^60 + 2^60 < 2^63).
+# Montgomery radix R = 2^30: every intermediate of a REDC stays in signed
+# int64 (t + m·p < 2^60 + 2^60 < 2^63).
 R_BITS = 30
 R = 1 << R_BITS
 MASK30 = R - 1

@@ -4,7 +4,7 @@ Functional jnp equivalents of the reference scalar kernels in
 poulpy-cpu-ref/src/reference/znx/ (arithmetic_ref.rs, rotate.rs,
 automorphism.rs, switch_ring.rs).  Polynomials are int64 arrays whose last
 axis is N; every op broadcasts over arbitrary leading axes (columns, limbs,
-batch), which is how the TPU backend batches work the reference does in
+batch), which is how this library batches work the reference does in
 scalar loops.
 """
 

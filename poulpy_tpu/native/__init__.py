@@ -1,6 +1,6 @@
 """Native host-side kernel library (C++ via ctypes).
 
-The TPU compute path is Pallas/XLA; the host-side runtime around it is
+The device compute path is XLA; the host-side runtime around it is
 native, mirroring the reference's split (poulpy-cpu-ref's reference kernels
 are the native tier under the Rust HAL).  kernels.cpp implements the
 poulpy-cpu-ref twin: ChaCha8 keystream, znx coefficient kernels,
@@ -31,14 +31,14 @@ _SRC = os.path.join(os.path.dirname(__file__), "kernels.cpp")
 @functools.lru_cache(maxsize=1)
 def _lib():
     """Compile (if needed) and load the shared library; None on failure."""
-    if os.environ.get("POULPY_TPU_NATIVE") == "0":
+    if os.environ.get("POULPY_NATIVE") == "0":
         return None
     try:
         with open(_SRC, "rb") as f:
             src = f.read()
         tag = hashlib.sha256(src).hexdigest()[:16]
         cache_dir = os.environ.get(
-            "POULPY_TPU_NATIVE_CACHE",
+            "POULPY_NATIVE_CACHE",
             os.path.join(tempfile.gettempdir(), "poulpy_tpu_native"),
         )
         os.makedirs(cache_dir, exist_ok=True)

@@ -28,7 +28,7 @@
 // < 0.5 ulp of the integer result, so the rounded outputs must match
 // EXACTLY — the reference's own determinism contract, README.md:44).
 //
-// Build & run (see BENCH_NOTES.md "baseline denominator"):
+// Build & run:
 //   g++ -O3 -march=native -funroll-loops -o /tmp/baseline_bench \
 //       poulpy_tpu/native/baseline_bench.cpp -lm
 //   /tmp/baseline_bench [seconds]

@@ -1,6 +1,5 @@
 // Single-thread host-CPU BLOCK-BINARY BLIND ROTATION benchmark — the
 // measured gate-bootstrap `vs_baseline` denominator for bench_full.py
-// (replaces the DERIVED ~310/s figure, VERDICT r4 item 2).
 //
 // Faithful, performance-tuned C++ twin of the reference's FFT64/AVX
 // block-binary CGGI loop (execute_block_binary,
@@ -12,8 +11,8 @@
 // Per block step:
 //   fwd FFT the 4 acc rows; per block element i (8): rotate the 4 input
 //   DFTs by the precomputed DFT(X^{a_i}-1) (the product is linear in acc,
-//   so the rotate lands on the 4 input rows, not the 8 outputs — the same
-//   algebraic move the repo's TPU kernel makes), VMP-accumulate the 8
+//   so the rotate lands on the 4 input rows, not the 8 outputs),
+//   VMP-accumulate the 8
 //   output limb arrays; 8 inverse FFTs; += acc; carry-normalize.
 //
 // The FFT is the same four-step AVX-class formulation as
@@ -24,7 +23,7 @@
 // NOT included: mod-switch, sample extract, and the GLWE->LWE keyswitch a
 // full gate pays (all cheap relative to 71 block steps) — omitting them
 // makes this denominator FASTER than a real CPU gate, i.e. conservative
-// against the TPU multiple.
+// against the accelerator's multiple.
 //
 // Build & run:
 //   g++ -O3 -march=native -funroll-loops -o /tmp/baseline_gate_bench \

@@ -2,8 +2,8 @@
 //
 // The reference implements its host kernels in native code
 // (poulpy-cpu-ref/src/reference/: znx scalar kernels, normalization carry
-// chains, sampling, ChaCha8 source; ~18 kLoC Rust).  The TPU build keeps
-// device compute in Pallas/XLA, but the host-side runtime around it —
+// chains, sampling, ChaCha8 source; ~18 kLoC Rust).  This library keeps
+// device compute in XLA, but the host-side runtime around it —
 // deterministic key/noise generation, golden-oracle arithmetic for the test
 // suite, and coefficient-domain utility kernels — is native here too:
 // this C++ library is the poulpy-cpu-ref twin, exposed to Python through

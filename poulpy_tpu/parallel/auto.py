@@ -6,7 +6,7 @@ Module (`module_with_mesh`) and the public entry points — external
 product, keyswitch, blind rotation, circuit bootstrap, CKKS mul — run
 their batch axis sharded over the mesh's data-parallel axis with NO
 call-site changes.  The reference has no distributed layer (its scale
-story is a single process per GPU); this is the TPU-native design.
+story is a single process per machine); this is this library's design.
 
 Mechanism: each wired entry point checks `module.mesh`; if set, it wraps
 its own local computation in ONE `jax.shard_map` with every batch operand's

@@ -1,28 +1,29 @@
-"""Multi-host (pod-slice) initialization and hybrid DCN×ICI meshes.
+"""Multi-host initialization and hybrid network × NVLink meshes.
 
-The reference is a single-process CPU library (SURVEY.md §2.8); scaling a
-TPU pod slice across hosts is new, TPU-native territory.  The design
-follows the standard JAX multi-controller recipe:
+The reference is a single-process CPU library (SURVEY.md §2.8); scaling
+across hosts is new territory here.  The design follows the standard JAX
+multi-controller recipe:
 
 * every host runs the SAME program; `jax.distributed.initialize()` wires
-  the controllers together (coordinator address + process ids come from
-  the TPU environment automatically on Cloud TPU, or explicitly for
-  manual/DCN deployments);
+  the controllers together (coordinator address, process count and process
+  id are passed explicitly);
 * after init, `jax.devices()` is the GLOBAL device list and mesh axes may
-  span hosts.  Axes that cross host boundaries ride DCN; axes within a
-  host ride ICI — so the mesh must be built host-outer / chip-inner.
+  span hosts.  Axes that cross host boundaries ride the network between
+  hosts; axes within a host ride NVLink (all-to-all between the GPUs of
+  one host) — so the mesh must be built host-outer / device-inner.
 
-Axis placement for the poulpy workloads (BENCH_NOTES throughput model):
+Axis placement for the poulpy workloads:
 
 * `dp` (ciphertext batch) — the embarrassingly-parallel axis: zero
-  collectives, so it is the ONLY axis that should span DCN.  Gate
+  collectives, so it is the ONLY axis that should span hosts.  Gate
   bootstrapping / external-product batches scale linearly with hosts.
-* `tp` (CRT primes) — one all_gather per inverse transform: keep on ICI.
-* `sp` (ring degree N) — all_to_all per NTT stage: strictly ICI.
+* `tp` (CRT primes) — one all_gather per inverse transform: keep within a
+  host.
+* `sp` (ring degree N) — all_to_all per NTT stage: strictly within a host.
 
-`make_hybrid_mesh` encodes exactly that: dp = (n_hosts × leftover chips),
-tp/sp inner, chips-within-host minor so collectives over tp/sp never
-leave the ICI domain.
+`make_hybrid_mesh` encodes exactly that: dp = (n_hosts × leftover devices),
+tp/sp inner, devices-within-host minor so collectives over tp/sp never
+leave the host.
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ def initialize_multihost(
 ) -> None:
     """Wire up the multi-controller runtime (idempotent).
 
-    On Cloud TPU pod slices all three arguments resolve from the metadata
-    environment; pass them explicitly only for manual DCN deployments.
-    Must run before any other jax call on every host.
+    Pass all three arguments for a multi-host run; with none, a failed
+    initialization degrades to single-process with a warning (dev/test
+    mode).  Must run before any other jax call on every host.
     """
     # idempotence check WITHOUT touching the backend: jax.process_count()
     # would initialize XLA and make a subsequent distributed.initialize
@@ -65,7 +66,7 @@ def initialize_multihost(
         if coordinator_address is not None:
             # the caller explicitly asked for a pod: degrading to a single
             # host silently would run the workload at 1/n_hosts scale and
-            # mask the misconfiguration (VERDICT r3 weak #6) — fail loud
+            # mask the misconfiguration — fail loud
             raise
         import warnings
 
@@ -78,10 +79,10 @@ def initialize_multihost(
 
 
 def make_hybrid_mesh(tp: int = 1, sp: int = 1):
-    """(dp, tp, sp) mesh over all global devices, DCN-aware.
+    """(dp, tp, sp) mesh over all global devices, host-aware.
 
-    tp·sp must divide the per-host device count so those axes stay on ICI;
-    dp absorbs everything else (hosts × leftover chips).  Single-host (and
+    tp·sp must divide the per-host device count so those axes stay within a
+    host; dp absorbs everything else (hosts × leftover devices).  Single-host (and
     the CPU virtual-device test mesh) degenerates to a plain mesh with the
     same axis layout.
     """
@@ -92,12 +93,12 @@ def make_hybrid_mesh(tp: int = 1, sp: int = 1):
     if n_local % inner != 0:
         raise ValueError(
             f"tp*sp={inner} must divide per-host device count {n_local} "
-            "(tp/sp collectives must stay on ICI)"
+            "(tp/sp collectives must stay within a host)"
         )
     if n_hosts > 1:
         from jax.experimental import mesh_utils
 
-        # host axis outer-most → only dp crosses DCN; granule = process
+        # host axis outer-most → only dp crosses hosts; granule = process
         # (host), the multi-host single-slice grouping — the default
         # slice_index granule is for multi-SLICE deployments
         arr = mesh_utils.create_hybrid_device_mesh(

@@ -1,10 +1,10 @@
 """Sharded execution of the hot primitives over a (dp, tp) mesh.
 
 dp: ciphertext-batch data parallelism (embarrassingly parallel — the batch
-axis is the TPU throughput axis).
+axis is the throughput axis).
 tp: CRT-prime tensor parallelism — every device owns P/tp primes and runs
-DFT → VMP → inverse-DFT for them end-to-end; one `all_gather` over ICI per
-inverse transform assembles the residues for the centered Garner lift.
+DFT → VMP → inverse-DFT for them end-to-end; one `all_gather` per inverse
+transform assembles the residues for the centered Garner lift.
 This mirrors the SURVEY §7 plan ("limb/batch axes sharded over the mesh,
 partial sums via collectives") with the collective placed where the CRT
 structure makes it cheapest.
@@ -12,6 +12,7 @@ structure makes it cheapest.
 
 from __future__ import annotations
 
+import dataclasses
 from types import SimpleNamespace
 
 import jax
@@ -100,16 +101,16 @@ def sharded_external_product_fn(
 
 
 def sharded_gate_bootstrap_fn(keys, mesh, gate: str = "nand"):
-    """dp-sharded batched gate bootstrapping — the pod-slice scale-out axis.
+    """dp-sharded batched gate bootstrapping — the scale-out axis.
 
     Gate bootstrapping is embarrassingly parallel over the ciphertext batch
-    (each bootstrap touches only its own LWE), so the idiomatic TPU mapping
-    is pure data parallelism: the batch axis of both LWE inputs shards over
+    (each bootstrap touches only its own LWE), so the mapping is pure data
+    parallelism: the batch axis of both LWE inputs shards over
     `dp`, every key tensor (BRK pmats, switching key, LUT, x-power table)
     replicates, and XLA's SPMD partitioner splits the whole blind-rotation
     scan per device with zero collectives.  Aggregate throughput is
-    bootstraps/s/chip × n_devices (ROADMAP scale-out item; the reference has
-    no distributed layer, SURVEY.md §2.8).
+    bootstraps/s/device × n_devices (the reference has no distributed
+    layer, SURVEY.md §2.8).
 
     `keys`: binfhe.gates.BootstrapKeys.  Returns
     fn(c1_data [B, size, n_lwe+1], c2_data like) → [B, size, n_lwe+1], with
@@ -128,13 +129,21 @@ def sharded_gate_bootstrap_fn(keys, mesh, gate: str = "nand"):
     }[gate]
     params = keys.params
     dp = NamedSharding(mesh, P("dp"))
+    rep = NamedSharding(mesh, P())
+    # key tensors enter as replicated jit ARGUMENTS: captured by closure they
+    # would be embedded in the program as constants (the BRK alone is
+    # hundreds of MB at production sizes)
+    key_arrays = jax.device_put((keys.brk, keys.to_lwe, keys.lut), rep)
 
-    def fn(c1_data, c2_data):
+    def fn(key_arrays, c1_data, c2_data):
+        brk, to_lwe, lut = key_arrays
+        k = dataclasses.replace(keys, brk=brk, to_lwe=to_lwe, lut=lut)
         c1 = LWECiphertext(data=c1_data, base2k=params.base2k, k=params.k_ct)
         c2 = c1.replace(data=c2_data)
-        return gate_fn(keys, c1, c2).data
+        return gate_fn(k, c1, c2).data
 
-    return jax.jit(fn, in_shardings=(dp, dp), out_shardings=dp)
+    jitted = jax.jit(fn, in_shardings=(rep, dp, dp), out_shardings=dp)
+    return lambda c1_data, c2_data: jitted(key_arrays, c1_data, c2_data)
 
 
 def sharded_external_product_ring_fn(
@@ -146,8 +155,9 @@ def sharded_external_product_ring_fn(
     axis: str = "sp",
 ):
     """(dp, sp)-sharded external product with the **ring degree N split over
-    `sp`** — one transform across chips (parallel/sharded_ntt.py butterfly
-    all_to_alls), for N beyond single-chip VMEM (SURVEY §2.8 design point).
+    `sp`** — one transform across devices (parallel/sharded_ntt.py
+    butterfly all_to_alls), for N beyond one device's memory (SURVEY §2.8
+    design point).
 
     Everything except the NTT stage exchanges is lane-local: residue entry,
     the VMP contraction (pointwise per lane), the Garner lift and the
@@ -196,8 +206,8 @@ def sharded_blind_rotation_block_fn(
     axis: str = "kp",
 ):
     """Block-binary CGGI blind rotation with the **blind-rotation key
-    sharded over `axis`** — the first capability a single chip cannot
-    replicate when the BRK exceeds HBM (VERDICT r2 item 10).
+    sharded over `axis`** — the first capability a single device cannot
+    replicate when the BRK exceeds its memory.
 
     The BRK is the big tensor of the scheme (n_lwe × dnum × (rank+1)² ×
     psize × P × N int32 — e.g. ~0.9 GB at N=2048/n_lwe=568/dnum=3 and
@@ -287,16 +297,23 @@ def sharded_blind_rotation_block_fn(
         check_vma=False,
     )
 
-    def fn(lwe):
+    # the BRK is placed once, each device holding only its block members,
+    # and enters the program as an argument (not an embedded constant)
+    pm_blk = jax.device_put(
+        brk.pmats.reshape((nblocks, block_size) + brk.pmats.shape[1:]),
+        NamedSharding(mesh, P(None, axis)),
+    )
+    lut_data = jax.device_put(lut.data, NamedSharding(mesh, P()))
+
+    def fn(pm_blk, lut_data, lwe):
         lwe_2n = mod_switch_2n(2 * n, lwe, lut.rot_dir)
         b = lwe_2n[..., 0]
         a = lwe_2n[..., 1:]
         a_blk = jnp.moveaxis(a, -1, 0).reshape(
             (nblocks, block_size) + b.shape
         )
-        pm_blk = brk.pmats.reshape(
-            (nblocks, block_size) + brk.pmats.shape[1:]
-        )
-        return shard(b, a_blk, pm_blk, lut.data)
+        return shard(b, a_blk, pm_blk, lut_data)
 
-    return jax.jit(fn)
+    jitted = jax.jit(fn)
+    dp = NamedSharding(mesh, P("dp"))
+    return lambda lwe: jitted(pm_blk, lut_data, jax.device_put(lwe, dp))

@@ -1,8 +1,9 @@
 """Ring-degree-sharded negacyclic NTT with all-to-all stage exchange.
 
-The SURVEY §2.8 design point: for N too large for one chip's VMEM (or to
-split one transform across a pod slice), the N axis shards over a mesh axis
-("sp") and butterfly stages exchange data all-to-all over ICI.
+The SURVEY §2.8 design point: for N too large for one device (or to split
+one transform across several), the N axis shards over a mesh axis ("sp")
+and butterfly stages exchange data all-to-all (over NVLink between the GPUs
+of one host).
 
 Key observation: Cooley–Tukey stage with half-length h pairs lanes (j, j+h).
   * In *cyclic* distribution (device d holds j ≡ d mod D) every stage with
@@ -14,7 +15,7 @@ h = N/2 … D cyclically, performs ONE all_to_all to block layout, and
 finishes h = D/2 … 1 locally; the inverse (Gentleman–Sande) mirrors this.
 Entry/exit all_to_alls convert between the natural (block) coefficient
 layout and the cyclic layout, so a forward+inverse round trip costs four
-all_to_alls total — each moving N/D elements per device over ICI.
+all_to_alls total — each moving N/D elements per device.
 """
 
 from __future__ import annotations

@@ -51,12 +51,11 @@ def read_array(view: memoryview):
 
 
 def serialize_layout(obj) -> bytes:
-    """Serialize a flax.struct layout (arrays + static metadata).
+    """Serialize a layout dataclass (arrays + static metadata).
 
     Nested layout dataclasses (e.g. CKKSCiphertext.glwe/meta) recurse:
     their blob is embedded length-prefixed and tagged with the nested
     class name in the metadata header."""
-    import flax.struct  # noqa: F401
     import dataclasses
 
     buf = bytearray()
@@ -74,7 +73,7 @@ def serialize_layout(obj) -> bytes:
             meta[f.name] = v
         elif dataclasses.is_dataclass(v):
             # qualified path: two layout classes sharing a bare name in
-            # different modules must not alias on deserialize (ADVICE r4)
+            # different modules must not alias on deserialize
             meta[f.name] = {
                 "__nested__": f"{type(v).__module__}.{type(v).__name__}"
             }

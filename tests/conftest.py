@@ -1,8 +1,8 @@
 """Test configuration: force an 8-device CPU JAX platform.
 
-Tests validate numerics; the real-TPU path is exercised by bench.py and
-__graft_entry__.py.  The multi-device CPU mesh validates the sharded code
-paths exactly as the driver's dryrun does.
+Tests validate numerics on the CPU; the GPU path is exercised by
+chip_smoke.py (bit-exact against the CPU, plus decryption).  The
+multi-device CPU mesh validates the sharded code paths.
 """
 
 import os

@@ -86,3 +86,85 @@ def vec_value_mod1(limbs: np.ndarray, base2k: int) -> list:
             v -= mod
         out.append(v)
     return out
+
+
+def normalize(vals, a_base2k: int, res_size: int, res_base2k: int,
+              offset: int = 0) -> np.ndarray:
+    """Exact model of the big-accumulator normalization
+    (hal.normalization.vec_znx_normalize_full and its wide twin).
+
+    `vals[j][c]` is limb j of coefficient c, an exact integer weighing
+    2^{-(j+1)·a_base2k} on the torus.  Each limb's contribution is floored
+    at the output precision, the sum is taken mod 1 and written as
+    `[res_size, N]` balanced base-2^res_base2k digits (limb 0 most
+    significant):
+        total = Σ_j floor(v_j · 2^{res_size·kr − (j+1)·ka + offset}).
+    """
+    n = len(vals[0])
+    totals = [0] * n
+    for j, limb in enumerate(vals):
+        t = res_size * res_base2k - (j + 1) * a_base2k + offset
+        for c in range(n):
+            v = int(limb[c])
+            totals[c] += v << t if t >= 0 else v >> (-t)
+    return int_to_balanced_limbs(totals, res_base2k, res_size)
+
+
+def to_int64(v: int) -> int:
+    """Two's-complement wrap of an exact integer to signed 64 bits (what a
+    wrapping int64 accumulator holds)."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def poly_add(a: list[int], b: list[int]) -> list[int]:
+    return [x + y for x, y in zip(a, b)]
+
+
+def vmp(a, mat, limb_offset: int = 0, res_size: int | None = None):
+    """Exact vector-matrix product of hal.dft.vmp_apply, in big ints.
+
+    `a` [cols_in, size_a, N] and `mat` [rows, cols_in, cols_out, psize, N]
+    (integer arrays); returns res[co][j] (lists of ints) with
+    res[co][j] = Σ_{ci, r < min(rows, size_a)} a[ci][r] ⊛ mat[r][ci][co][j +
+    limb_offset] for j + limb_offset < psize, zero beyond, j < res_size."""
+    rows, cols_in, cols_out, psize, n = np.shape(mat)
+    res_size = psize if res_size is None else res_size
+    rmax = min(rows, np.shape(a)[1])
+    out = []
+    for co in range(cols_out):
+        col = []
+        for j in range(res_size):
+            acc = [0] * n
+            if j + limb_offset < psize:
+                for ci in range(cols_in):
+                    for r in range(rmax):
+                        acc = poly_add(acc, negacyclic_mul(
+                            [int(v) for v in a[ci][r]],
+                            [int(v) for v in mat[r][ci][co][j + limb_offset]],
+                        ))
+            col.append(acc)
+        out.append(col)
+    return out
+
+
+def limb_conv(a, b, res_size: int):
+    """Bivariate limb convolution of two limb vectors [size, N]:
+    res[k] = Σ_{i+j=k} a[i] ⊛ b[j] (hal.dft.cnv_apply), exact."""
+    n = np.shape(a)[-1]
+    out = []
+    for k in range(res_size):
+        acc = [0] * n
+        for i in range(np.shape(a)[0]):
+            j = k - i
+            if 0 <= j < np.shape(b)[0]:
+                acc = poly_add(acc, negacyclic_mul(
+                    [int(v) for v in a[i]], [int(v) for v in b[j]]))
+        out.append(acc)
+    return out
+
+
+def align(limbs, size: int, n: int):
+    """Zero-pad or truncate a limb list to `size` limbs."""
+    limbs = [list(map(int, x)) for x in limbs[:size]]
+    return limbs + [[0] * n for _ in range(size - len(limbs))]

@@ -1,4 +1,4 @@
-"""BDD circuit-library verification (VERDICT r2 #3): every op × widths
+"""BDD circuit-library verification: every op × widths
 {4, 8, 16, 32} swept against Python int semantics through eval_bdd_plain,
 plus one encrypted evaluation per op at w=4 off a shared FheUint prepare.
 
@@ -172,7 +172,7 @@ def test_fheuint_prepared_encrypt_sk_debug_path():
 
 
 def test_fheuint_prepared_crosses_jit_boundary():
-    """FheUint layouts are flax.struct pytrees: a prepared operand must be
+    """FheUint layouts are pytree dataclasses: a prepared operand must be
     passable as a jit ARGUMENT (bench_schemes' u32-add times exactly this;
     regression for the plain-dataclass version that raised
     'non-array argument')."""

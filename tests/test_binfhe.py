@@ -411,24 +411,20 @@ def test_xpow_table_cache_no_tracer_leak():
     one process)."""
     import jax
 
-    from poulpy_tpu.binfhe.blind_rotation import (
-        _xpow_minus1_table,
-        _xpow_table,
-    )
+    from poulpy_tpu.binfhe.blind_rotation import _xpow_table
     from poulpy_tpu.hal.module import get_module
 
     m = get_module(32, 2)
     _xpow_table.cache_clear()
-    _xpow_minus1_table.cache_clear()
 
     @jax.jit
     def f(x):
-        t = _xpow_minus1_table(32, m.basis.primes)
+        t = _xpow_table(32, m.basis.primes)
         return x + t[0, 0, 0]
 
     @jax.jit
     def g(x):
-        t = _xpow_minus1_table(32, m.basis.primes)
+        t = _xpow_table(32, m.basis.primes)
         return x * 2 + t[0, 0, 0]
 
     f(jnp.int64(1))
@@ -535,52 +531,76 @@ def test_fheuint_prepare_rank_reduction_ks_glwe():
     assert got == val, got
 
 
-def test_block_rotation_steps_span_bit_exact(monkeypatch):
-    """The steps=2 span grouping (pairs + odd remainder) through the FUSED
-    branch must match both the steps=1 fused run and the jnp block path
-    (nblocks=3 exercises the remainder)."""
-    import os
+def _rotate_oracle(p: int, poly) -> list[int]:
+    """poly · X^p in Z[X]/(X^N + 1), exact."""
+    n = len(poly)
+    out = [0] * n
+    for i, v in enumerate(poly):
+        k = (i + p) % (2 * n)
+        if k < n:
+            out[k] += int(v)
+        else:
+            out[k - n] -= int(v)
+    return out
 
-    from jax.experimental.pallas import tpu as pltpu
 
-    from poulpy_tpu import backends
+@pytest.mark.parametrize(
+    "nprimes,prime_bits,batch", [(2, 30, 3), (4, 30, 1), (2, 28, 3)]
+)
+@pytest.mark.parametrize("block", [4, 8])
+def test_block_binary_rotation_matches_oracle(nprimes, prime_bits, batch,
+                                              block):
+    """blind_rotation_execute_block on random keys, LUT and LWE vs an exact
+    big-int replay of the block-binary CGGI recurrence: per block,
+    acc += Σ_i (X^{a_i} − 1)·(acc ⊡ BRK_i), normalized once per block."""
+    from oracle import align, normalize, poly_add, vmp
+
     from poulpy_tpu.binfhe.blind_rotation import (
+        BlindRotationKeyPrepared,
         blind_rotation_execute_block,
-        blind_rotation_key_encrypt_sk,
     )
-    from poulpy_tpu.binfhe.lut import lookup_table_new
-    from poulpy_tpu.core import encryption as enc
-    from poulpy_tpu.core.prepared import glwe_secret_prepare
-    from poulpy_tpu.hal.module import get_module
-    from poulpy_tpu.hal.source import Source
+    from poulpy_tpu.binfhe.lut import LookupTable
+    from poulpy_tpu.core.layouts import LWECiphertext
+    from poulpy_tpu.hal import dft
 
-    m = get_module(64, 2, 28)            # lazy primes: fused path eligible
-    base2k, k_ct, k_brk = 17, 34, 68
-    src = Source(b"\x11" * 32)
-    xe, xa = Source(b"\x12" * 32), Source(b"\x13" * 32)
-    n_lwe, block = 12, 4                 # 3 blocks: steps=2 -> 1 pair + 1
-    sk_lwe = src.binary_block(n_lwe, block)
-    skp = glwe_secret_prepare(m, enc.secret_new(m, 1, src))
-    brk = blind_rotation_key_encrypt_sk(
-        m, jnp.asarray(sk_lwe), skp, base2k, k_brk, 4, xe, xa
+    n, base2k, size, rows, psize, nblocks = 64, 17, 2, 2, 3, 2
+    n_lwe = nblocks * block
+    m = get_module(n, nprimes, prime_bits)
+    lim = 1 << (base2k - 1)
+    mats = RNG.integers(-lim, lim, size=(n_lwe, rows, 2, 2, psize, n))
+    brk = BlindRotationKeyPrepared(
+        pmats=dft.vmp_prepare(m, jnp.asarray(mats)), base2k=base2k,
+        k=psize * base2k,
     )
-    lut = lookup_table_new(m.n, base2k, k_ct, np.arange(8), f_k=6)
-    pt = np.zeros((3, 2, 1), dtype=np.int64)
-    pt[:, 0, 0] = np.array([1, 2, 3]) << (base2k - 4)
-    lwe = enc.lwe_encrypt_sk(
-        None, jnp.asarray(pt), jnp.asarray(sk_lwe), base2k, k_ct, xe, xa
-    )
+    lut_data = RNG.integers(-lim, lim, size=(1, size, n))
+    lut = LookupTable(data=jnp.asarray(lut_data), base2k=base2k,
+                      k=size * base2k)
+    lwe_data = RNG.integers(-lim, lim, size=(batch, size, n_lwe + 1))
+    lwe = LWECiphertext(data=jnp.asarray(lwe_data), base2k=base2k,
+                        k=size * base2k)
+    have = np.asarray(blind_rotation_execute_block(m, lwe, lut, brk, block))
 
-    want = blind_rotation_execute_block(m, lwe, lut, brk, block)  # jnp path
-
-    monkeypatch.setattr(backends, "use_fused", lambda: True)
-    outs = {}
-    for steps in ("1", "2"):
-        monkeypatch.setenv("POULPY_TPU_BR_STEPS", steps)
-        blind_rotation_execute_block.clear_cache()
-        with pltpu.force_tpu_interpret_mode():
-            outs[steps] = blind_rotation_execute_block.__wrapped__(
-                m, lwe, lut, brk, block
-            )
-    assert np.array_equal(np.asarray(outs["1"]), np.asarray(want))
-    assert np.array_equal(np.asarray(outs["2"]), np.asarray(want))
+    two_n = 2 * n
+    shift = base2k - (two_n.bit_length() - 1)   # torus → Z_2N rounding
+    for b in range(batch):
+        sw = [(-int(v) + (1 << (shift - 1))) >> shift for v in lwe_data[b, 0]]
+        acc = [[_rotate_oracle(sw[0], lut_data[0, j]) for j in range(size)],
+               [[0] * n for _ in range(size)]]
+        for blk in range(nblocks):
+            upd = [[[0] * n for _ in range(psize)] for _ in range(2)]
+            for i in range(block):
+                idx = blk * block + i
+                prod = vmp(np.array(acc, dtype=np.int64), mats[idx])
+                for c in range(2):
+                    for j in range(psize):
+                        rot = _rotate_oracle(sw[1 + idx] % two_n, prod[c][j])
+                        upd[c][j] = poly_add(
+                            upd[c][j], [x - y for x, y in zip(rot, prod[c][j])]
+                        )
+            acc = [
+                normalize([poly_add(u, w) for u, w in
+                           zip(upd[c], align(acc[c], psize, n))],
+                          base2k, size, base2k).tolist()
+                for c in range(2)
+            ]
+        assert have[b].tolist() == acc, b

@@ -227,7 +227,7 @@ def test_mul_chain_depth3_rank2():
 def test_mul_many_balanced_tree():
     """composite.rs ckks_mul_many (delegates/composite.rs mul_many_rec):
     4-operand product == slotwise product; budget pays only the tree DEPTH
-    (2 muls' worth), not n-1 as a left fold would (VERDICT r3 item 5).
+    (2 muls' worth), not n-1 as a left fold would.
 
     Parameters mirror test_mul_chain_depth3_rank2: k=153/δ=18/budget=60
     keeps the mask-wrap landing margin wide enough for a multi-mul chain
@@ -277,8 +277,7 @@ def test_mul_many_balanced_tree():
 def test_vec_rnx_plaintext_forms(ctx):
     """layouts/plaintext/vec.rs VecRnx: float coefficient polynomial
     quantizes to a VecZnx (to_znx:273) and back (decode_from_znx), and
-    drives ct×pt through the convolution path with the expected noise
-    (VERDICT r3 item 9)."""
+    drives ct×pt through the convolution path with the expected noise."""
     from poulpy_tpu.ckks import plaintext as ptf
 
     m, sk, skp, tsk, encd = ctx
@@ -343,7 +342,7 @@ def test_mul_add_const_scalar(ctx):
 
 
 def test_rotate_many_r_and_ordering(ctx):
-    """Slot-rotation semantics pinned for several r (VERDICT r3 item 4):
+    """Slot-rotation semantics pinned for several r:
     encode→rotate(r)→decode == np.roll(slots, -r) through encryption with
     automorphism keys, plus encoder-level orbit checks documenting the
     ordering contract.

@@ -157,7 +157,7 @@ def test_tensor_key_compressed_roundtrip():
 def test_gglwe_to_ggsw_key_compressed_bit_exact():
     """compressed/gglwe_to_ggsw_key.rs: one seeded GGLWE per rank element;
     each decompresses bit-exact vs a direct keygen replaying the same
-    branch sequence (VERDICT r3 item 5)."""
+    branch sequence."""
     m, _ = setup()
     sk = enc.secret_new(m, 2, Source(b"\x07" * 32))
     skp = glwe_secret_prepare(m, sk)
@@ -232,7 +232,7 @@ def test_lwe_switching_key_compressed_bit_exact():
 def test_compressed_key_bundle_serialization():
     """The full CBT/BDD key bundle ships seed-compressed end-to-end:
     every compressed key type (incl. the two new ones) survives the wire
-    and decompresses identically (VERDICT r3 item 5 'done' criterion)."""
+    and decompresses identically."""
     from poulpy_tpu.utils.serialization import (
         deserialize_layout,
         serialize_layout,

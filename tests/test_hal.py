@@ -19,6 +19,7 @@ from oracle import (
     int_to_balanced_limbs,
     limbs_to_int,
     negacyclic_mul,
+    to_int64 as oracle_to_int64,
     vec_value_mod1,
 )
 
@@ -343,7 +344,7 @@ def test_chacha_core_openssl_kat():
     quarter-round/layout/feed-forward code run at 10 double-rounds must
     reproduce OpenSSL's ChaCha20 (via pyca `cryptography`) byte-for-byte —
     an external, independently-validated implementation, so the Python and
-    C++ twins cannot share a hidden core bug (VERDICT r2 weak #5)."""
+    C++ twins cannot share a hidden core bug."""
     from cryptography.hazmat.primitives.ciphers import Cipher, algorithms
 
     from poulpy_tpu.hal.source import _chacha_blocks
@@ -443,3 +444,132 @@ def test_vmp_apply_shape_sweep(combos):
                             want = [x + y for x, y in zip(want, t)]
                 key = (rows, cols_in, cols_out, size_a, psize, res_size)
                 assert [int(v) for v in big[co, j]] == want, (key, co, j)
+
+
+# --------------------------------------------------------------------------
+# Modular primitives and the residue exit, against Python ints
+# --------------------------------------------------------------------------
+
+PRIME_LIST = [268369921, 268361729,       # 28-bit
+              1073479681, 1072693249]     # 30-bit
+
+
+def _consts(p):
+    from poulpy_tpu.hal.primes import R
+
+    qinv = (-pow(p, -1, R)) % R
+    return R, qinv, R * R % p
+
+
+@pytest.mark.parametrize("p", PRIME_LIST)
+def test_mont_mul_exact(p):
+    """REDC(a·b) = a·b·R^{-1} mod p in [0, p), edge values included."""
+    from poulpy_tpu.hal.ntt import mont_mul
+
+    R, qinv, _ = _consts(p)
+    a = RNG.integers(0, p, size=4096, dtype=np.int64)
+    b = RNG.integers(0, p, size=4096, dtype=np.int64)
+    a[:4], b[:4] = [0, 1, p - 1, p - 1], [0, 1, 1, p - 1]
+    have = np.asarray(mont_mul(jnp.asarray(a), jnp.asarray(b),
+                               jnp.int64(p), jnp.int64(qinv)))
+    r_inv = pow(R, -1, p)
+    want = [int(x) * int(y) * r_inv % p for x, y in zip(a, b)]
+    assert have.tolist() == want
+
+
+@pytest.mark.parametrize("p", PRIME_LIST)
+def test_reduce_i64_exact(p):
+    """Any signed int64 → its residue mod p, including both int64 ends."""
+    from poulpy_tpu.hal.ntt import reduce_i64
+
+    _, qinv, r2 = _consts(p)
+    x = RNG.integers(-(2**63), 2**63 - 1, size=4096, dtype=np.int64)
+    x[:6] = [0, -1, 1, -(2**63), 2**63 - 1, p]
+    have = np.asarray(reduce_i64(jnp.asarray(x), jnp.int64(p),
+                                 jnp.int64(qinv), jnp.int64(r2),
+                                 jnp.int64((1 << 40) % p)))
+    assert have.tolist() == [int(v) % p for v in x]
+
+
+@pytest.mark.parametrize("p", PRIME_LIST)
+def test_fold_mod_exact(p):
+    """Non-negative accumulators below 2^59 → value mod p."""
+    from poulpy_tpu.hal.ntt import fold_mod
+
+    _, qinv, r2 = _consts(p)
+    acc = RNG.integers(0, 2**59, size=4096, dtype=np.int64)
+    acc[:3] = [0, 2**59 - 1, p]
+    have = np.asarray(fold_mod(jnp.asarray(acc), jnp.int64(p),
+                               jnp.int64(qinv), jnp.int64(r2)))
+    assert have.tolist() == [int(v) % p for v in acc]
+
+
+@pytest.mark.parametrize(
+    "primes", [PRIME_LIST[:2], PRIME_LIST[2:], PRIME_LIST],
+    ids=["28bit", "30bit", "mixed4"],
+)
+def test_garner_lift_matches_crt(primes):
+    """Centered CRT lift of arbitrary residues, wrapped to int64."""
+    from poulpy_tpu.hal.ntt import NttTables
+    from poulpy_tpu.hal.primes import PrimeBasis
+
+    basis = PrimeBasis(tuple(primes))
+    t = NttTables(basis, 16)
+    r = np.stack([RNG.integers(0, p, size=(3, 16)) for p in primes], axis=-2)
+    r[0, :, 0] = 0
+    r[0, :, 1] = [p - 1 for p in primes]
+    have = np.asarray(garner_lift(t, jnp.asarray(r)))
+    M = basis.modulus
+    for b in range(3):
+        for c in range(16):
+            v = sum(int(r[b, i, c]) * (M // p) * pow(M // p, -1, p)
+                    for i, p in enumerate(primes)) % M
+            v = v - M if v > M // 2 else v
+            assert int(have[b, c]) == oracle_to_int64(v), (b, c)
+
+
+@pytest.mark.parametrize("nprimes", [2, 4])
+@pytest.mark.parametrize(
+    "psize,res_size,kr,ka,offset,s_size",
+    [
+        (4, 3, 17, 17, 0, 0),
+        (4, 3, 17, 17, 0, 3),
+        (3, 5, 13, 19, 0, 0),
+        (2, 2, 17, 17, -5, 0),
+        (5, 2, 21, 17, 4, 2),
+    ],
+)
+def test_residue_exit_matches_oracle(nprimes, psize, res_size, kr, ka,
+                                     offset, s_size):
+    """The exit of every product: arbitrary residues → Garner lift into the
+    int64 big accumulator (+ an int64 add on the leading limbs) → carry
+    normalization with base change, resize and offset."""
+    from oracle import normalize
+
+    n = 16
+    m = get_module(n, nprimes)
+    primes = m.basis.primes
+    x = np.stack([RNG.integers(0, p, size=(2, psize, n)) for p in primes],
+                 axis=-2)
+    big = garner_lift(m.tables, jnp.asarray(x))
+    small = RNG.integers(-(2**20), 2**20, size=(2, max(s_size, 1), n),
+                         dtype=np.int64)
+    if s_size:
+        upto = min(s_size, psize)
+        big = big.at[..., :upto, :].add(jnp.asarray(small[:, :upto]))
+    have = np.asarray(vec_znx_normalize_full(res_size, kr, offset, big, ka))
+    M = m.basis.modulus
+    for b in range(2):
+        vals = []
+        for j in range(psize):
+            row = []
+            for c in range(n):
+                v = sum(int(x[b, j, i, c]) * (M // p) * pow(M // p, -1, p)
+                        for i, p in enumerate(primes)) % M
+                v = v - M if v > M // 2 else v
+                if j < min(s_size, psize):
+                    v += int(small[b, j, c])
+                row.append(oracle_to_int64(v))
+            vals.append(row)
+        want = normalize(vals, ka, res_size, kr, offset)
+        assert np.array_equal(have[b], want), b

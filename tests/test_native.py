@@ -41,13 +41,13 @@ def test_source_stream_unchanged_by_native_path():
     native._lib.cache_clear()
     import os
 
-    os.environ["POULPY_TPU_NATIVE"] = "0"
+    os.environ["POULPY_NATIVE"] = "0"
     try:
         s2 = src_mod.Source(b"\x07" * 32)
         draws2 = [s2.next_u64() for _ in range(100)]
         tern2 = s2.ternary_hw(64, 16)
     finally:
-        del os.environ["POULPY_TPU_NATIVE"]
+        del os.environ["POULPY_NATIVE"]
         native._lib.cache_clear()
     assert draws1 == draws2
     np.testing.assert_array_equal(tern1, tern2)

@@ -79,7 +79,7 @@ def test_digest_stable():
 
 def test_ggsw_and_key_roundtrips():
     """GGSW ct, GGLWE switching key, prepared GGSW, and the compressed
-    blind-rotation key all survive the wire (VERDICT r2 weak #8)."""
+    blind-rotation key all survive the wire."""
     from poulpy_tpu.binfhe.blind_rotation import (
         BlindRotationKeyCompressed,
         blind_rotation_key_decompress,

@@ -184,14 +184,8 @@ def test_ckks_mul_reference_demo_params():
 
 
 # ---------------------------------------------------------------------------
-# Wide FUSED mega-kernels (backends/pallas_wide.py) vs the jnp wide path
+# Wide product and tensor pipelines vs exact big-int oracles
 # ---------------------------------------------------------------------------
-
-def _mk_lazy_wide_module(n=64, nprimes=5):
-    """Lazy (28-bit) basis with enough primes for base2k=52 bounds."""
-    m = get_module(n, nprimes, 28)
-    return m
-
 
 @pytest.mark.parametrize(
     "ci,co,rows,size_a,psize,kr,ka,s_size,offset,batch",
@@ -203,47 +197,41 @@ def _mk_lazy_wide_module(n=64, nprimes=5):
         (2, 2, 2, 2, 3, 26, 52, 0, 5, 2),    # kr < 32 output windows
     ],
 )
-def test_fused_wide_glwe_product_matches_jnp(ci, co, rows, size_a, psize,
-                                             kr, ka, s_size, offset, batch):
-    from jax.experimental.pallas import tpu as pltpu
+def test_wide_product_matches_oracle(ci, co, rows, size_a, psize, kr, ka,
+                                     s_size, offset, batch):
+    """dft → vmp → wide (hi, lo) Garner exit → + int64 small → wide
+    normalization, at limb values far beyond int64."""
+    from oracle import normalize, poly_add, vmp
 
-    from poulpy_tpu.backends import pallas_wide as pw
     from poulpy_tpu.hal.wide import wadd, wfrom_i64
 
-    n = 64
-    m = _mk_lazy_wide_module(n)
-    P = m.nprimes
-    res_size = 3
+    n, res_size = 64, 3
+    m = get_module(n, 5, 28)
     lim = 1 << (ka - 1)
-    a = jnp.asarray(
-        RNG.integers(-lim, lim, size=(batch, ci, size_a, n), dtype=np.int64)
-    )
-    pmat = _rand_residues(m.basis, (rows, ci, co, psize, P, n))
-
-    # jnp wide reference pipeline
-    a_dft = dft.dft_apply(m, a)
-    res_dft = dft.vmp_apply(m, a_dft, pmat)
+    a = RNG.integers(-lim, lim, size=(batch, ci, size_a, n), dtype=np.int64)
+    mat = RNG.integers(-lim, lim, size=(rows, ci, co, psize, n),
+                       dtype=np.int64)
+    small = RNG.integers(-lim, lim, size=(batch, co, max(s_size, 1), n),
+                         dtype=np.int64)
+    res_dft = dft.vmp_apply(m, dft.dft_apply(m, jnp.asarray(a)),
+                            dft.vmp_prepare(m, jnp.asarray(mat)))
     hi, lo = dft.idft_apply_wide(m, res_dft)
-    small = None
+    upto = min(s_size, psize)
     if s_size:
-        small = jnp.asarray(RNG.integers(
-            -lim, lim, size=(batch, co, s_size, n), dtype=np.int64
-        ))
-        upto = min(s_size, psize)
-        sh, sl = wfrom_i64(small[..., :upto, :])
+        sh, sl = wfrom_i64(jnp.asarray(small[..., :upto, :]))
         nh, nl = wadd(hi[..., :upto, :], lo[..., :upto, :], sh, sl)
         hi = hi.at[..., :upto, :].set(nh)
         lo = lo.at[..., :upto, :].set(nl)
-    want = dft.big_normalize_wide(
+    have = np.asarray(dft.big_normalize_wide(
         m, res_size, kr, (hi, lo), ka, res_offset=offset
-    )
-
-    with pltpu.force_tpu_interpret_mode():
-        have = pw.fused_glwe_product_wide(
-            m, a, pmat, res_size, kr, ka, small=small, res_offset=offset,
-            t_tile=2,
-        )
-    assert np.array_equal(np.asarray(have), np.asarray(want))
+    ))
+    for b in range(batch):
+        big = vmp(a[b], mat)
+        for c in range(co):
+            for j in range(upto):
+                big[c][j] = poly_add(big[c][j], small[b, c, j].tolist())
+            want = normalize(big[c], ka, res_size, kr, offset)
+            assert np.array_equal(have[b, c], want), (b, c)
 
 
 @pytest.mark.parametrize(
@@ -254,97 +242,40 @@ def test_fused_wide_glwe_product_matches_jnp(ci, co, rows, size_a, psize,
         (3, 3, 2, 4, 44, 52, 13),
     ],
 )
-def test_fused_tensor_wide_matches_jnp(size_a, size_b, dnum, lin_size,
-                                       kr, ka, offset):
-    from jax.experimental.pallas import tpu as pltpu
+def test_wide_tensor_matches_oracle(size_a, size_b, dnum, lin_size, kr, ka,
+                                    offset):
+    """Rank-1 tensor product through the wide exit: the quadratic term
+    normalized into gadget digits and the linear terms normalized with the
+    landing offset, vs the exact limb convolution."""
+    from oracle import limb_conv, normalize, poly_add
 
-    from poulpy_tpu.backends import pallas_wide as pw
     from poulpy_tpu.core.layouts import GLWECiphertext
     from poulpy_tpu.core.operations import glwe_tensor_product_big
 
-    n = 64
-    m = _mk_lazy_wide_module(n)
-    batch = 2
+    n, batch = 64, 2
+    m = get_module(n, 5, 28)
     conv_size = size_a + size_b - 1
     lim = 1 << (ka - 1)
-    a = jnp.asarray(RNG.integers(
-        -lim, lim, size=(batch, 2, size_a, n), dtype=np.int64
-    ))
-    b = jnp.asarray(RNG.integers(
-        -lim, lim, size=(batch, 2, size_b, n), dtype=np.int64
-    ))
-    ga = GLWECiphertext(data=a, base2k=ka, k=size_a * ka)
-    gb = GLWECiphertext(data=b, base2k=ka, k=size_b * ka)
-
-    lin, quad = glwe_tensor_product_big(m, ga, gb, conv_size, wide=True)
-    want_d = dft.big_normalize_wide(
-        m, dnum, kr, quad[(0, 0)], ka, res_offset=offset
+    a = RNG.integers(-lim, lim, size=(batch, 2, size_a, n), dtype=np.int64)
+    b = RNG.integers(-lim, lim, size=(batch, 2, size_b, n), dtype=np.int64)
+    lin, quad = glwe_tensor_product_big(
+        m, GLWECiphertext(data=jnp.asarray(a), base2k=ka, k=size_a * ka),
+        GLWECiphertext(data=jnp.asarray(b), base2k=ka, k=size_b * ka),
+        conv_size, wide=True,
     )
-    want_lin = jnp.stack(
-        [
-            dft.big_normalize_wide(m, lin_size, ka, t, ka, res_offset=offset)
-            for t in lin
-        ],
-        axis=-3,
-    )
+    have_d = np.asarray(dft.big_normalize_wide(
+        m, dnum, kr, quad[(0, 0)], ka, res_offset=offset))
+    have_lin = [np.asarray(dft.big_normalize_wide(
+        m, lin_size, ka, t, ka, res_offset=offset)) for t in lin]
+    for i in range(batch):
+        def conv(x, y):
+            return limb_conv(a[i, x], b[i, y], conv_size)
 
-    with pltpu.force_tpu_interpret_mode():
-        have_d, have_lin = pw.fused_tensor_product_wide(
-            m, a, b, conv_size, dnum, lin_size, kr, ka, offset=offset,
-            t_tile=2,
-        )
-    assert np.array_equal(np.asarray(have_d), np.asarray(want_d))
-    assert np.array_equal(np.asarray(have_lin), np.asarray(want_lin))
-
-
-def test_ckks_mul_wide_fused_end_to_end(monkeypatch):
-    """Full wide CKKS mul through the public API with the fused wide path
-    forced on: bit-exact vs the jnp wide path AND decodes correctly."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from poulpy_tpu import backends
-    from poulpy_tpu.ckks import ops as ck
-    from poulpy_tpu.ckks.encoder import Encoder
-    from poulpy_tpu.core import encryption as enc
-    from poulpy_tpu.core.prepared import (
-        glwe_secret_prepare,
-        glwe_tensor_key_prepare,
-    )
-    from poulpy_tpu.hal.source import Source
-
-    n, base2k, k_ct, k_key = 64, 52, 95, 156
-    log_delta, log_budget = 30, 35
-    m = _mk_lazy_wide_module(n, 5)
-    sk = enc.secret_new(m, 1, Source(bytes(32)), dist="ternary_hw", hw=16)
-    skp = glwe_secret_prepare(m, sk)
-    tsk = glwe_tensor_key_prepare(
-        m,
-        enc.glwe_tensor_key_encrypt_sk(
-            m, sk, skp, base2k, k_key, dnum=2,
-            source_xe=Source(b"\x01" * 32), source_xa=Source(b"\x02" * 32),
-        ),
-    )
-    encd = Encoder(n)
-    z1 = RNG.normal(size=n // 2) + 1j * RNG.normal(size=n // 2)
-    z2 = RNG.normal(size=n // 2) + 1j * RNG.normal(size=n // 2)
-    xe, xa = Source(b"\x03" * 32), Source(b"\x04" * 32)
-    c1 = ck.encrypt_sk(
-        m, ck.encode(encd, z1, base2k, k_ct, log_delta, log_budget),
-        skp, k_ct, xe, xa,
-    )
-    c2 = ck.encrypt_sk(
-        m, ck.encode(encd, z2, base2k, k_ct, log_delta, log_budget),
-        skp, k_ct, xe, xa,
-    )
-
-    want = ck.mul(m, c1, c2, tsk)           # jnp wide path (fused off)
-
-    monkeypatch.setattr(backends, "use_fused", lambda: True)
-    with pltpu.force_tpu_interpret_mode():
-        have = ck.mul.__wrapped__(m, c1, c2, tsk)   # unjitted: fresh trace
-
-    assert np.array_equal(
-        np.asarray(have.glwe.data), np.asarray(want.glwe.data)
-    )
-    got = ck.decode(encd, ck.decrypt(m, have, skp))
-    assert np.abs(got - z1 * z2).max() < 1e-3
+        want_lin = [conv(0, 0), [poly_add(u, v) for u, v in
+                                 zip(conv(0, 1), conv(1, 0))]]
+        assert np.array_equal(
+            have_d[i], normalize(conv(1, 1), ka, dnum, kr, offset)), i
+        for c in range(2):
+            assert np.array_equal(
+                have_lin[c][i],
+                normalize(want_lin[c], ka, lin_size, ka, offset)), (i, c)
